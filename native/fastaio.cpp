@@ -1,9 +1,9 @@
 // Native FASTA ingest: parse + validate + 2-bit-encode at memory bandwidth.
 //
-// TPU-native replacement for the reference's buffered char-at-a-time
-// parser (streamfastaparser.cpp:29-93) on the host side of the pipeline:
-// the TPU consumes ~10^8-10^9 codes/s, so the host encoder must not be
-// the bottleneck. Single pass over the raw bytes with a 256-entry code
+// Replacement for the reference's buffered char-at-a-time parser
+// (streamfastaparser.cpp:29-93) on the host side of the pipeline: the
+// device consumes codes far faster than a char-at-a-time loop makes
+// them, so the host encoder must not be the bottleneck. Single pass over the raw bytes with a 256-entry code
 // table; semantics identical to the reference:
 //   - header = first whitespace-delimited token after '>'
 //   - whitespace in bodies skipped; chars uppercased via the table

@@ -7,12 +7,13 @@ then validates well-formedness (parseable records, per-chromosome
 nondecreasing positions, stub/junction id ranges) and records
 RUN_BIG.json at the repo root.
 
-Run SOLO on the TPU: python scripts/run_big.py [total_gbases]
+Run SOLO on the GPU: python scripts/run_big.py [total_gbases]
 """
 
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -20,6 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TMP = tempfile.gettempdir()  # input, output and checkpoints of the run
 _ALPHA = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
@@ -77,9 +79,10 @@ def validate(out: str, n_seqs: int, length: int, n_junc: int) -> dict:
 
 def attach_reference(res: dict, out: str, total: int) -> None:
     """Attach the reference binary's wall/parity to res, when its run
-    on the same input exists (/tmp/twopaco_big_ref.dbg + log line
+    on the same input exists ($TMPDIR/twopaco_big_ref.dbg + log line
     'exit=0 wall=<s>s' from the companion run)."""
-    ref_dbg, ref_log = "/tmp/twopaco_big_ref.dbg", "/tmp/big_ref.log"
+    ref_dbg = os.path.join(TMP, "twopaco_big_ref.dbg")
+    ref_log = os.path.join(TMP, "big_ref.log")
     if not (
         total == 5_000_000_000  # the measured reference ran on 10x500M
         and os.path.exists(ref_dbg)
@@ -91,10 +94,10 @@ def attach_reference(res: dict, out: str, total: int) -> None:
     m = re.search(r"exit=0 wall=(\d+)s", open(ref_log).read())
     if not m:
         return
-    # round-2 SOLO measurement of the same binary/config/input scale
-    # was 3615 s (BENCHMARKS.md); this-host runs can be slower when the
-    # builder session contends for cores — compare against the FASTER
-    # (conservative, reference-favoring) of the two
+    # an earlier SOLO measurement of the same reference binary, config
+    # and input scale on a 4-core host was 3615 s; a run here can be
+    # slower when other work contends for cores — compare against the
+    # FASTER (conservative, reference-favoring) of the two
     this_run_s = int(m.group(1))
     ref_s = min(this_run_s, 3615)
     sys.path.insert(0, os.path.join(REPO, "scripts"))
@@ -133,8 +136,8 @@ def main():
     args = [a for a in sys.argv[1:] if a != "--attach-ref"]
     gb = float(args[0]) if args else 5.0
     n_seqs, length = 10, int(gb * 1e9 / 10)
-    fa = "/tmp/twopaco_big.fa"
-    out = "/tmp/twopaco_big.dbg"
+    fa = os.path.join(TMP, "twopaco_big.fa")
+    out = os.path.join(TMP, "twopaco_big.dbg")
     res_path = os.path.join(REPO, "RUN_BIG.json")
     if "--attach-ref" in sys.argv:
         # post-hoc: the reference run finished after ours; merge its
@@ -151,8 +154,8 @@ def main():
 
     t0 = time.monotonic()
     # bigger sort buffers halve the round count (each round re-hashes
-    # the whole input, reference-style); fall back if the remote XLA
-    # service can't compile the larger sort program
+    # the whole input, reference-style); fall back if the larger sort
+    # program does not fit the device
     for chunk_pow in (26, 25, 24, 22):
         cfg = PipelineConfig(
             k=25,
@@ -165,7 +168,7 @@ def main():
             enum = build_junctions(
                 [fa], cfg, out_path=out,
                 log=lambda s: print(s, flush=True),
-                checkpoint_dir="/tmp/twopaco_big_ckpt",
+                checkpoint_dir=os.path.join(TMP, "twopaco_big_ckpt"),
             )
             break
         except Exception as e:

@@ -4,7 +4,7 @@ tests/test_multihost.py launches N of these, one per simulated host,
 each owning a disjoint set of virtual CPU devices
 (--xla_force_host_platform_device_count). They rendezvous through
 jax.distributed (Gloo over localhost TCP — the same client/coordinator
-machinery a DCN TPU pod uses), so collectives genuinely cross process
+machinery a multi-host cluster uses), so collectives genuinely cross process
 boundaries: this is the closest a single machine gets to validating
 parallel/multihost.py's per-host sharding, cross-process all_to_all
 routing, process-0 writer gating, and barrier-ordered checkpoints.

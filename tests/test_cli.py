@@ -7,12 +7,10 @@ import sys
 import numpy as np
 import pytest
 
-from tests.conftest import GOLDEN_DIR
+from tests.conftest import EXAMPLE_FA, GOLDEN_DIR
 from twopaco_tpu.cli import graphdump as gd_cli
 from twopaco_tpu.cli import twopaco as tp_cli
 from twopaco_tpu.io import junctions
-
-EXAMPLE_FA = "/root/reference/example/example.fa"
 
 
 def test_twopaco_cli_end_to_end(tmp_path, capsys):

@@ -4,11 +4,9 @@ import os
 
 import numpy as np
 
-from tests.conftest import GOLDEN_DIR
+from tests.conftest import EXAMPLE_FA, GOLDEN_DIR
 from twopaco_tpu.io import fasta, junctions
 from twopaco_tpu.passes import PipelineConfig, build_junctions
-
-EXAMPLE_FA = "/root/reference/example/example.fa"
 
 
 def test_example_k25_positions_and_group(tmp_path):

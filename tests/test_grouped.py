@@ -31,7 +31,7 @@ def test_grouped_matches_resident(tmp_path, monkeypatch):
     ref_out, ref_enum = _run(tmp_path, "resident.dbg", seqs)
 
     # shrink the resident budget so the same run goes grouped
-    monkeypatch.setattr(sortpipe, "_RESIDENT_BYTES", 1)
+    monkeypatch.setenv("TWOPACO_RESIDENT_BYTES", "1")
     got_out, got_enum = _run(tmp_path, "grouped.dbg", seqs)
 
     assert got_enum.vertices_count == ref_enum.vertices_count
@@ -43,7 +43,7 @@ def test_grouped_checkpoint_resume(tmp_path, monkeypatch):
     rng = np.random.default_rng(12)
     seqs = [rng.integers(0, 4, size=5000).astype(np.uint8) for _ in range(3)]
 
-    monkeypatch.setattr(sortpipe, "_RESIDENT_BYTES", 1)
+    monkeypatch.setenv("TWOPACO_RESIDENT_BYTES", "1")
     ck = str(tmp_path / "ck")
     cfg = PipelineConfig(k=9, filter_bits=20, rounds=5)
     sl = [(i, s) for i, s in enumerate(seqs)]
@@ -77,7 +77,7 @@ def test_grouped_wide_matches_narrow(tmp_path, monkeypatch):
 
     ref_out, ref_enum = _run(tmp_path, "narrow.dbg", seqs)
 
-    monkeypatch.setattr(sortpipe, "_RESIDENT_BYTES", 1)
+    monkeypatch.setenv("TWOPACO_RESIDENT_BYTES", "1")
     monkeypatch.setenv("TWOPACO_POS64", "1")
     got_out, got_enum = _run(tmp_path, "wide_grouped.dbg", seqs)
 

@@ -3,8 +3,8 @@ CPU devices, jax.distributed over localhost).
 
 The degenerate single-process path of parallel/multihost.py is covered
 elsewhere; these tests spawn genuinely separate OS processes that
-rendezvous through the same jax.distributed machinery a DCN TPU pod
-uses, so per-host input sharding (make_array_from_process_local_data),
+rendezvous through the same jax.distributed machinery a multi-host
+cluster uses, so per-host input sharding (make_array_from_process_local_data),
 cross-process all_to_all record routing, process-0 writer gating, and
 barrier-ordered checkpoint files are all exercised for real. Output
 must be byte-identical to the single-device sort engine (this
@@ -51,7 +51,7 @@ def _free_port() -> int:
 
 def _worker_env(port: int, pid: int, n_proc: int, spec: dict) -> dict:
     env = dict(os.environ)
-    env["TWOPACO_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     # each process owns 4 virtual devices -> 8 global, same collective
     # timeout raises as conftest.py (virtual devices on a small host)
     env["XLA_FLAGS"] = (

@@ -2,6 +2,7 @@
 
 import numpy as np
 
+from tests.conftest import EXAMPLE_FA
 from twopaco_tpu import dna
 from twopaco_tpu.cli import naive
 from twopaco_tpu.passes import PipelineConfig, build_junctions
@@ -33,7 +34,7 @@ def test_naive_matches_pipeline_bytes(tmp_path):
 def test_naive_cli_example(tmp_path, capsys):
     out = str(tmp_path / "n.bin")
     rc = naive.main(
-        ["-k", "11", "/root/reference/example/example.fa", "-o", out]
+        ["-k", "11", EXAMPLE_FA, "-o", out]
     )
     assert rc == 0
     assert "Distinct junctions = 7" in capsys.readouterr().out

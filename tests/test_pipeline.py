@@ -5,13 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from tests.conftest import GOLDEN_DIR
+from tests.conftest import EXAMPLE_FA, GOLDEN_DIR
 from twopaco_tpu import dna
 from twopaco_tpu.io import fasta, junctions
 from twopaco_tpu.passes import PipelineConfig, build_junctions, INVALID_VERTEX
 from twopaco_tpu.testing import oracle
-
-EXAMPLE_FA = "/root/reference/example/example.fa"
 
 
 def run_pipeline(seqs, k, out, **kw):

@@ -11,23 +11,16 @@ import time
 
 import pytest
 
+from tests.conftest import EXAMPLE_FA as EXAMPLE
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-EXAMPLE = "/root/reference/example/example.fa"
 TPCLIENT = os.path.join(REPO, "native", "build", "tpclient")
 
 
 @pytest.fixture(scope="module")
 def server(tmp_path_factory):
     sock_path = str(tmp_path_factory.mktemp("srv") / "tp.sock")
-    env = dict(
-        os.environ,
-        TWOPACO_PLATFORM="cpu",
-        TWOPACO_SERVER_SOCKET=sock_path,
-        TWOPACO_COMPILE_CACHE=os.environ.get(
-            "TWOPACO_COMPILE_CACHE",
-            os.path.expanduser("~/.cache/twopaco_tpu_xla_cpu"),
-        ),
-    )
+    env = dict(os.environ, JAX_PLATFORMS="cpu", TWOPACO_SERVER_SOCKET=sock_path)
     proc = subprocess.Popen(
         [sys.executable, "-m", "twopaco_tpu.cli.serve",
          "--socket", sock_path],

@@ -4,7 +4,7 @@ Flag-compatible with the reference binary:
     -k/--kvalue, -f/--filtersize XOR --filtermemory, -q/--hashfnumber,
     -r/--rounds, -t/--threads, -a/--abundance, --tmpdir, --test,
     -o/--outfile, positional FASTA files.
-TPU-specific extras are prefixed --tpu-*.
+Device-engine extras are prefixed --tpu-* (a historical name).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ def make_parser() -> argparse.ArgumentParser:
         prog="twopaco",
         description=(
             "Program for construction of the condensed de Bruijn graph "
-            "from complete genomes (TPU-native)"
+            "from complete genomes (JAX)"
         ),
     )
     p.add_argument("-k", "--kvalue", type=int, default=25, help="Value of k (odd)")
@@ -139,12 +139,12 @@ def main(argv: list[str] | None = None) -> int:
 
     from twopaco_tpu.passes import PipelineConfig, build_junctions
 
-    # batch-shape auto-tier: the remote TPU's per-dispatch latency
-    # (~6-15 ms) makes small batches the bottleneck at scale — big
-    # inputs get 2M-position batches (the bench.py shape), small ones
-    # keep the small program whose compile-cache read is cheaper.
+    # batch-shape auto-tier: every batch costs dispatches, so big
+    # inputs get 2M-position batches (the bench.py shape), while small
+    # ones keep the small program whose compile-cache read is cheaper.
     # Fixed tiers (not proportional sizing) keep jit shapes stable
-    # across runs so the persistent compile cache always hits.
+    # across runs so the persistent compile cache always hits. The
+    # tiers have not been re-timed on the GPU (ROADMAP.md).
     positions, rows = args.tpu_positions, args.tpu_rows
     try:
         total_sz = sum(os.path.getsize(f) for f in args.filenames)
@@ -160,15 +160,16 @@ def main(argv: list[str] | None = None) -> int:
         extra["sort_chunk"] = args.tpu_sort_chunk
     elif os.environ.get("TWOPACO_SORT_CHUNK"):
         # the serve daemon pins the big buffer: its process is resident,
-        # so the one-time executable load amortizes across requests
+        # so the one-time compile (or cache load) amortizes across
+        # requests
         extra["sort_chunk"] = int(os.environ["TWOPACO_SORT_CHUNK"])
     elif total_sz < (1 << 30):
         # cold CLI on small/mid inputs: big sort programs execute
-        # faster but cost minutes of per-process executable load on the
-        # remote runtime (measured 343s vs 93s end-to-end on a 285
-        # Mbase input); many small rounds win when the process dies
-        # after one run. Gbase-scale runs amortize the load — keep the
-        # library default (2^26) there.
+        # faster but cost more to compile or load per process, so many
+        # small rounds were chosen for a process that dies after one
+        # run; Gbase-scale runs amortize the load and keep the library
+        # default (2^26). Whether the split still pays on the GPU is to
+        # be timed (ROADMAP.md).
         extra["sort_chunk"] = 1 << 22
     cfg = PipelineConfig(
         k=args.kvalue,

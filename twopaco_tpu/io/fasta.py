@@ -9,7 +9,7 @@ Matches the reference parser (streamfastaparser.cpp:29-93):
 
 Unlike the reference's char-at-a-time loop, parsing here is a handful of
 numpy passes over the whole buffer (LUT gather + boolean compaction) —
-the host must keep up with TPU ingest, so the scalar loop is avoided.
+the host must keep up with device ingest, so the scalar loop is avoided.
 A native C++ path (native/) can replace this transparently.
 """
 

@@ -1,6 +1,6 @@
-"""HBM-resident Bloom filter: functional fill (scatter) / probe (gather).
+"""Device-resident Bloom filter: functional fill (scatter) / probe (gather).
 
-TPU-native replacement for the reference's atomic fetch_or bit array
+Data-parallel replacement for the reference's atomic fetch_or bit array
 (concurrentbitvector.cpp:31-37). Two layouts:
 
   - 'byte': one uint8 per Bloom slot. Fill is a plain scatter-max (all
@@ -27,10 +27,10 @@ import jax.numpy as jnp
 
 U32 = jnp.uint32
 
-BYTE_LAYOUT_MAX_F = 30  # 1 GiB of uint8 slots: TPU XLA gathers cannot
-# address 2^31 elements (the X64-element-type rewrite rejects gathers
-# "whose indices exceed 32-bits" — remote compile error, measured at
-# f=31), so the byte layout stops where int32 element indexing does
+# Single-device layout caps: this code indexes the filter with int32
+# (see _index_dtype), so a layout stops where int32 element indexing
+# does. Lifting them is ROADMAP Reach D.
+BYTE_LAYOUT_MAX_F = 30  # 1 GiB of uint8 slots; 2^31 slots overflow int32
 BIT_LAYOUT_MAX_F = 35  # 4 GiB of bits; word index (2^30) must fit int32
 # (f=36 would need 2^31 words — beyond int32 indexing and the fill
 # sentinel scheme; shard across devices instead)
@@ -98,9 +98,9 @@ def fill(filt: jnp.ndarray, idx: jnp.ndarray, valid: jnp.ndarray, layout: str) -
 
 
 def _index_dtype(n: int):
-    """int32 whenever the array is addressable with it: 64-bit ints are
-    software-emulated on TPU and bloat both compile and run time.
-    At exactly n = 2^31 (the f=31 byte layout) jax's index
+    """int32 whenever the array is addressable with it: narrower index
+    math and index arrays (whether int64 costs anything on the GPU is
+    an open item in ROADMAP.md). At exactly n = 2^31 (the f=31 byte layout) jax's index
     normalization must hold the SIZE as a constant of the index dtype,
     so int32 overflows at trace time — slot indices are non-negative,
     so uint32 covers up to 2^32 slots without int64 emulation."""
@@ -174,8 +174,7 @@ def fill_blocks(
     positions derived from the strand-symmetric EDGE hash. Because the
     block is keyed by the endpoint vertex, the mark pass tests all 8
     edge extensions of a position with ONE contiguous 32-byte gather
-    (probe_blocks) instead of 8*q serial f-bit gathers — XLA gathers
-    are ~serial per element on TPU, so this is the mark pass's 8x.
+    (probe_blocks) instead of 8*q scattered f-bit gathers.
     Every real edge writes both in-range endpoints' blocks, so any
     probe the reference design guarantees to hit still hits (no false
     negatives; see kernels.fill_indices_block)."""
@@ -197,19 +196,13 @@ def probe_blocks(
 ) -> jnp.ndarray:
     """Gather each position's 8-word block once, test bits (..., S, q):
     True where ALL q bits of a slot are present. The in-block word
-    select is a one-hot sum (VPU compares are free next to gathers).
-    Slots/bits unroll as Python loops over (...)-shaped temporaries —
-    a single (..., S, q, 8) broadcast formulation compiled to a 17 GB
-    HBM footprint at the bench shapes (measured remote-compile OOM).
-    The block gather is 8 flat word gathers at consecutive addresses
-    (base+0..base+7, one HBM line), with the index arrays materialized
-    behind an optimization_barrier first. Two measured dead ends at the
-    f=33 bench shapes: reshaping the filter to (-1, 8) makes XLA
-    materialize it T(8,128)-tiled minor-dim-8 — 16x padding, 16 GB HBM
-    for a 1 GB filter; a single lax.gather with slice_sizes=(8,) runs
-    ~2.6 us/position (~170 s/mark pass, q-independent — the fused
-    index math serializes the gather, same pathology as pass2_mark's
-    bit path)."""
+    select is a one-hot sum (vector compares are cheap next to gathers).
+    Slots/bits unroll as Python loops over (...)-shaped temporaries,
+    so no (..., S, q, 8) broadcast is ever materialized. The block
+    gather is 8 flat word gathers at consecutive addresses
+    (base+0..base+7, one 32-byte line), with the index arrays
+    materialized behind an optimization_barrier first so that index
+    math is not fused into the gathers (see kernels.pass1_fill)."""
     base = block.astype(jnp.int32) * jnp.int32(BLOCK_WORDS)
     idxs = jax.lax.optimization_barrier(
         tuple(base + jnp.int32(kk) for kk in range(BLOCK_WORDS))

@@ -23,7 +23,7 @@ and edge extensions are O(1) identities:
 Strand-symmetric values (h(E) == h(rc E)) come from combining the two
 strands with '+', so no canonical-strand selection is needed anywhere in
 the Bloom path. Two independent tables give (h1, h2) for
-Kirsch-Mitzenmacher probe derivation. All lanes are uint32 (TPU-native
+Kirsch-Mitzenmacher probe derivation. All lanes are uint32 (native vector
 width); rotation amounts are per-lane vectors (mod 32).
 """
 

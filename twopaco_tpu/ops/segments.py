@@ -1,9 +1,9 @@
 """Segmented reductions over SORTED segments, scatter-free.
 
-jax.ops.segment_sum/max lower to XLA scatter-add, which on TPU is a
-~13ns/element serial loop. For records already sorted by group (the
-sort-join engine's invariant) the same reductions are two log-depth
-associative scans — pure vector work at HBM bandwidth:
+jax.ops.segment_sum/max lower to an XLA scatter-add. For records already
+sorted by group (the sort-join engine's invariant) the same reductions
+are two log-depth associative scans — streaming vector work, with no
+scatter:
 
   1. forward segmented inclusive scan (combine resets at group starts)
      gives prefix aggregates; the value at each group's LAST element is
@@ -72,8 +72,8 @@ def seg_or(x, new_group):
 
 # --- chunked variant: bounded program size for any array length ---------
 #
-# The remote XLA compiler chokes on multi-million-element associative
-# scans; chunking keeps every compiled program at a fixed CHUNK length.
+# Chunking keeps every compiled program at a fixed CHUNK length, so the
+# program does not grow with the input.
 # Two host-looped passes:
 #   forward:  per-chunk segmented prefix scans with a carry-in for the
 #             segment spanning the chunk start;

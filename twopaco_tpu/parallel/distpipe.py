@@ -20,9 +20,8 @@ Dataflow per round:
      the received records into a per-device resident buffer;
   2. one per-device sort + the FUSED chunked judge/compact
      (sortpipe.judge_compact_fused — every compiled scan step is
-     bounded to JUDGE_CHUNK rows, same as the single-chip engine, so
-     the remote XLA compiler never sees a multi-million-element
-     program); all records of a k-mer live on exactly one device, so
+     bounded to JUDGE_CHUNK rows, same as the single-device engine);
+     all records of a k-mer live on exactly one device, so
      junction decisions are local;
   3. per-(round, device) result blocks are fetched exactly (bucketed
      slices; 4-byte packed occurrences when dense — sortpipe._pack_occ
@@ -47,8 +46,8 @@ all of the k-mer's edges), so the judged candidate records yield output
 byte-identical to the ungated engines.
 
 Multi-host note: every collective here is a single mesh all_to_all /
-all_gather / psum — under jax.distributed with a DCN+ICI mesh the same
-program runs unchanged; see parallel/multihost.py for process setup and
+all_gather / psum — under jax.distributed with a mesh spanning hosts
+the same program runs unchanged; see parallel/multihost.py for process setup and
 per-host input sharding.
 """
 

@@ -7,8 +7,8 @@ design follows the standard JAX SPMD recipe:
 
   * every process calls :func:`initialize` (jax.distributed) and then
     runs the SAME program over a global mesh spanning all hosts'
-    devices — collectives ride ICI within a host/pod slice and DCN
-    across;
+    devices — collectives go through NCCL on GPUs (NVLink within a
+    host, the network across hosts) and Gloo on CPU devices;
   * input is sharded BY ROWS of each window batch: device d owns rows
     [d*B/D, (d+1)*B/D), so a host materializes only its own devices'
     rows (jax.make_array_from_process_local_data) — FASTA parsing is
@@ -41,9 +41,10 @@ def initialize(
     """Initialize the multi-process JAX runtime (no-op if single
     process and no coordinator is configured).
 
-    Arguments default from the standard env vars understood by
-    jax.distributed (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID) or the TPU metadata service on real pods.
+    Arguments default from the env vars JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID. Nothing discovers a GPU cluster
+    on its own: every process needs the coordinator's host:port, the
+    process count and its own id.
     """
     if jax.distributed.is_initialized():
         return  # idempotent: entry points call this defensively
@@ -97,7 +98,7 @@ def fetch(a) -> np.ndarray:
 
     Replicated or fully-addressable arrays convert directly (passing
     them to process_allgather would CONCATENATE one copy per process);
-    only cross-host row-sharded arrays need the DCN all-gather."""
+    only cross-host row-sharded arrays need the cross-host all-gather."""
     if (
         jax.process_count() == 1
         or not isinstance(a, jax.Array)

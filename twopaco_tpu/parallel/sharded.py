@@ -1,7 +1,8 @@
 """Multi-chip sharding: hash-prefix-sharded Bloom filter + routed probes.
 
 The reference has no distributed layer at all (SURVEY.md §2.4: one
-process, pthreads, atomics); this module introduces it TPU-natively:
+process, pthreads, atomics); this module introduces it over a device
+mesh:
 
   mesh axis 'shard' plays two roles at once —
     * window batches are data-parallel over it (rows split on axis 0);
@@ -10,12 +11,13 @@ process, pthreads, atomics); this module introduces it TPU-natively:
       the owner, the suffix is the in-shard slot.
 
   Every fill/probe therefore becomes: bucket the locally generated hash
-  values by owner prefix, exchange buckets with jax.lax.all_to_all over
-  ICI, operate on the local shard, and (for probes) all_to_all the hit
+  values by owner prefix, exchange buckets with jax.lax.all_to_all (NVLink
+  between the GPUs of one host), operate on the local shard, and (for probes) all_to_all the hit
   bits back along the inverse permutation. This is the direct analogue
   of the reference's multi-round hash-interval trick
   (vertexenumerator.h:176-211) laid out across space instead of time:
-  a filter D× larger than one chip's HBM at full aggregate bandwidth.
+  a filter D× larger than one device's memory at full aggregate
+  bandwidth.
 
 All routing is dense and static-shape: per-destination capacity is a
 compile-time constant with overflow *detected* (returned as a count, to

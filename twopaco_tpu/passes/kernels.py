@@ -11,7 +11,7 @@ Reference pipeline (vertexenumerator.h:122-466, SURVEY.md §0):
   pass 4  lookup   — junction-id assignment per candidate occurrence
                      (EdgeConstructionWorker, vertexenumerator.h:856-993)
 
-TPU-native design: every pass is a pure function over a WindowBatch's
+Design: every pass is a pure function over a WindowBatch's
 (B, P) position grid. Edges and both strands are derived from the packed
 vertex words with O(w) shifts (no per-edge repacking): for vertex V with
 reverse complement V',
@@ -264,8 +264,9 @@ def pass1_fill(filt, codes, valid, low, high_incl, *, cfg: PassConfig):
         word, bits, val = jax.lax.optimization_barrier((word, bits, val))
         return bloom.fill_blocks(filt, word, bits, val)
     idx, val = fill_indices(codes, valid, low, high_incl, cfg)
-    # Materialize the indices before the scatter: letting XLA fuse the
-    # index computation into the scatter serializes it (~1000x slower).
+    # Materialize the indices before the scatter, so XLA cannot fuse
+    # the index computation into the scatter and serialize it (whether
+    # XLA:GPU still needs the barrier is an open item in ROADMAP.md).
     idx, val = jax.lax.optimization_barrier((idx, val))
     return bloom.fill(filt, idx, val, cfg.layout)
 
@@ -409,8 +410,7 @@ def pass2_mark(filt, codes, valid, low, high_incl, *, cfg: PassConfig):
         mask = mark_decide(hits, base, prev, nxt)
         return pack_mask(mask), jnp.sum(mask, dtype=jnp.int64)
     idx, base, prev, nxt = mark_indices(codes, valid, low, high_incl, cfg)
-    # Barrier: fusing index math into the gather serializes it (see
-    # pass1_fill); materialize indices, then gather at full bandwidth.
+    # Barrier: materialize the indices, then gather (see pass1_fill).
     idx = jax.lax.optimization_barrier(idx)
     hits = bloom.probe_all(filt, idx, cfg.layout)
     mask = mark_decide(hits, base, prev, nxt)
